@@ -1,4 +1,4 @@
-"""erpl_monte_carlo_sim_tpu — TPU-native 6DOF Monte Carlo flight dynamics.
+"""erpl_monte_carlo_sim_tpu — accelerator-batched 6DOF Monte Carlo flight dynamics.
 
 A from-scratch JAX/XLA rebuild of the capabilities of
 ``smcconoughey/erpl_monte_carlo_sim``:
@@ -10,7 +10,8 @@ A from-scratch JAX/XLA rebuild of the capabilities of
   * Monte Carlo = ``vmap`` over a dispersion pytree sampled with
     ``jax.random`` keys (reproducible by construction),
   * scale-out = sharding the batch axis over a ``jax.sharding.Mesh``
-    (XLA collectives over ICI replace the reference's process pool).
+    (XLA collectives between devices replace the reference's process
+    pool).
 """
 
 __version__ = "0.1.0"

@@ -1,13 +1,11 @@
 """Batched whole-flight summaries on the flat component representation.
 
 Drop-in equivalent of ``jit(vmap(simulate_summary))`` for the Monte Carlo
-hot path, ~2.5x faster on TPU: the vmapped stacked-vector path compiles to
-~560 fusions whose boundaries spill [B,3]/[B,4] intermediates that TPU pads
-minor-dim 3 -> 128 (XLA cost model: 14.6 KB HBM per lane-step; HBM-bandwidth
-bound). This path runs ``engine.component.flight_components`` (the same
-physics the Pallas kernel executes) directly under ``jit`` with every
-loop-carried value a flat [B] array and the per-lane wind table stored
-lanes-minor [3, N, B] so B rides the 128-wide lane tiles with zero padding.
+hot path: the vmapped stacked-vector path compiles to ~560 fusions whose
+boundaries spill [B,3]/[B,4] intermediates with a padded minor dimension of
+3. This path runs ``engine.component.flight_components`` directly under
+``jit`` with every loop-carried value a flat [B] array and the per-lane
+wind table stored lanes-minor [3, N, B], so B is the contiguous axis.
 
 Replaces the same reference code as ``simulate_summary``
 (`/root/reference/rocket_simulation/simulator.py:42-125,208-264`); results
@@ -46,14 +44,15 @@ def prepare_batch(scene_b: Scene, ic_b: InitialConditions):
     [B,N,3] -> [3,N,B] transpose is a one-time cost outside the step loop.
     A SHARED [N,3] table stays [3,N,1]: the tent-basis product broadcasts
     the lane axis, so the (logically tiny) shared table is never
-    materialized per-lane (~315 MB HBM at B=262k for 1.2 KB of data)."""
+    materialized per-lane (~315 MB of device memory at B=262k for 1.2 KB
+    of data)."""
     wind = scene_b.wind
     scene_nw = scene_b.replace(wind=None)
     grid = jnp.asarray(wind.altitudes)
     if isinstance(wind, WindModes):
         # Mode-compressed layout: shared basis [N,M] + per-lane scores
-        # carried lanes-minor [3,M,B] (B on the 128-wide lane tiles, same
-        # reasoning as the [3,N,B] table layout). The dict keys make the
+        # carried lanes-minor [3,M,B] (same reasoning as the [3,N,B] table
+        # layout). The dict keys make the
         # jitted wind_fn's dispatch structural, not positional.
         wT = {
             "basis": jnp.asarray(wind.basis),
@@ -95,7 +94,8 @@ def _make_wind_fn(grid, wT):
                 sv = sv.astype(alt.dtype)
                 sw = sw.astype(alt.dtype)
             w = tent_weights_lanes_minor(alt, grid)              # [N,B]
-            bval = jnp.einsum("nm,nb->mb", basis.astype(alt.dtype), w)
+            bval = jnp.einsum("nm,nb->mb", basis.astype(alt.dtype), w,
+                              precision=jax.lax.Precision.HIGHEST)
             return (
                 jnp.sum(bval * su, axis=0),
                 jnp.sum(bval * sv, axis=0),

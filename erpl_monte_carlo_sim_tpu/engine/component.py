@@ -1,26 +1,19 @@
 """Component-form whole-flight core: every quantity is a flat [...] array.
 
-Why this exists — measured, not guessed: the stacked-vector XLA path's main
-loop compiles to ~560 fusions whose boundaries spill [B,3]/[B,4]/[B,3,3]
-intermediates to HBM; TPU pads a minor dimension of 3 out to a 128-wide
-lane tile, so every such spill costs ~42x its logical bytes. XLA's own cost
-model reports 1.9 GB accessed per loop iteration at B=131072 (~14.6 KB per
-lane-step, vs ~0.25 KB of true carry state + ~1.2 KB of wind table per
-eval); the measured wall time (2.33 s for 1046 iterations) matches HBM
-bandwidth on exactly those bytes. Keeping EVERY loop-carried and spilled
-quantity as a flat [B] f32/int32 vector removes the padding blowup and most
-relayouts.
+Why this exists: the stacked-vector path's main loop compiles to ~560
+fusions whose boundaries spill [B,3]/[B,4]/[B,3,3] intermediates to device
+memory, with a minor dimension of 3 that the device layout pads. Keeping
+EVERY loop-carried and spilled quantity as a flat [B] f32/int32 vector
+removes the padding and most relayouts.
 
-The same functions run in three contexts (shape-polymorphic, pure jnp):
+The same functions run in two contexts (shape-polymorphic, pure jnp):
   * under plain ``jit`` on [B]-wide arrays — ``engine.batch``, the Monte
     Carlo hot path,
-  * inside the Pallas whole-flight kernel on [TILE] lanes —
-    ``experimental.pallas_component``,
   * at B=1 for low-latency single flights.
 
 Wind access is a caller-provided closure ``wind_fn(alt) -> (u, v, w)`` so
-each context can pick its own table layout (lanes-minor [N,B] for XLA,
-lanes-major [P,N] inside Pallas tiles).
+each caller picks its table layout (``engine.batch``: a lanes-minor
+[3,N,B] table, or mode scores against a shared basis).
 
 The physics formulas mirror the reference (cited per function); the
 structural redesign is the flat-component representation. See
@@ -36,13 +29,12 @@ import jax.numpy as jnp
 from ..models.atmosphere import atmosphere_properties, gravity_at
 from ..models.motor import mass_flow_rate_at, propellant_remaining, thrust_at
 from ..models.rocket import aero_coefficients, dynamic_cp, mass_properties
-from ..ops.math import arcsin, arctan2, safe_sqrt
+from ..ops.math import safe_sqrt
 
 __all__ = [
     "quat_normalize_c",
     "rotmat_c",
     "qdot_c",
-    "wind_tent_lanes_major",
     "wind_tent_lanes_minor",
     "dynamics_c",
     "rk4_c",
@@ -99,31 +91,6 @@ def qdot_c(qw, qx, qy, qz, ox, oy, oz):
     )
 
 
-def wind_tent_lanes_major(alt, grid, wu, wv, ww):
-    """Tent-basis wind query, lanes-major layout: grid [1,N] shared,
-    wu/wv/ww [P,N] per-lane (the Pallas-tile layout).
-
-    Same clamped-linear semantics as ``ops.interp.interpolate_vec``
-    (`environment.py:267-276`); the only wide intermediate is [P,N].
-    Endpoint reads use static ``lax.slice`` (Mosaic lacks dynamic_slice)."""
-    g = grid  # [1, N]
-    n = g.shape[1]
-    lo = jnp.sum(jax.lax.slice(g, (0, 0), (1, 1)))
-    hi = jnp.sum(jax.lax.slice(g, (0, n - 1), (1, n)))
-    xc = jnp.clip(alt, lo, hi)[:, None]  # [P,1]
-    dg = jnp.maximum(g[:, 1:] - g[:, :-1], 1e-30)
-    left = jnp.concatenate([jnp.ones_like(dg[:, :1]), dg], axis=1)
-    right = jnp.concatenate([dg, jnp.ones_like(dg[:, :1])], axis=1)
-    up = (xc - (g - left)) / left
-    down = ((g + right) - xc) / right
-    w = jnp.clip(jnp.minimum(up, down), 0.0, 1.0)  # [P,N]
-    return (
-        jnp.sum(w * wu, axis=1),
-        jnp.sum(w * wv, axis=1),
-        jnp.sum(w * ww, axis=1),
-    )
-
-
 def tent_weights_lanes_minor(alt, grid):
     """Clamped-linear tent weights [N,B] for per-lane altitudes ``alt [B]``
     on the shared ``grid [N]`` — the gather-free interpolation core shared
@@ -142,10 +109,9 @@ def tent_weights_lanes_minor(alt, grid):
 
 def wind_tent_lanes_minor(alt, grid, wu, wv, ww):
     """Tent-basis wind query, lanes-MINOR layout: grid [N], wu/wv/ww [N,B],
-    alt [B]. The XLA batch layout: B rides the 128-wide lane dimension with
-    zero padding (B is a multiple of 128), N=100 pads only the 8-wide
-    sublane axis (~4%), vs ~28% for [B,100]. The reduction runs over
-    sublanes, which the VPU handles natively."""
+    alt [B]. B is the contiguous (minor) axis, so every [N,B] operand is
+    read with unit stride and the reduction runs over the major knot
+    axis."""
     w = tent_weights_lanes_minor(alt, grid)
     return (
         jnp.sum(w * wu, axis=0),
@@ -184,12 +150,12 @@ def dynamics_c(scene, cfg, wind_fn, t, st, para):
     # keeps reverse-mode finite at the degenerate point (atan2's vjp is
     # 0/0 when both args are exactly zero) without touching the primal
     degen = (jnp.abs(ub) < 1e-6) & (jnp.abs(wb) < 1e-6)
-    alpha = jnp.where(degen, 0.0, arctan2(jnp.where(degen, 1.0, wb),
-                                          jnp.where(degen, 1.0, ub)))
+    alpha = jnp.where(degen, 0.0, jnp.arctan2(jnp.where(degen, 1.0, wb),
+                                              jnp.where(degen, 1.0, ub)))
     v_xz = safe_sqrt(ub * ub + wb * wb)
     bdeg = v_xz < 1e-6
-    beta = jnp.where(bdeg, 0.0, arctan2(jnp.where(bdeg, 1.0, vb),
-                                        jnp.where(bdeg, 1.0, v_xz)))
+    beta = jnp.where(bdeg, 0.0, jnp.arctan2(jnp.where(bdeg, 1.0, vb),
+                                            jnp.where(bdeg, 1.0, v_xz)))
     q_dyn = 0.5 * atm.density * rel_sq
 
     burning = (frac > 0.0) & (t <= scene.motor.burn_time)
@@ -220,9 +186,6 @@ def dynamics_c(scene, cfg, wind_fn, t, st, para):
     lift = q_dyn * coeffs.cl * rocket.reference_area
     side = q_dyn * coeffs.cy * rocket.reference_area
     # wind->body matrix applied to (-drag, -side, -lift) (`utils.py:175-205`)
-    # (r4 ablation note: replacing these with the exact algebraic
-    # identities cos(atan2(w,u)) = u/hypot etc. measured 3.7% SLOWER on
-    # v5e — the guard selects cost more than the VPU's sin/cos. Retired.)
     ca = jnp.cos(alpha)
     sa = jnp.sin(alpha)
     cb = jnp.cos(beta)
@@ -354,12 +317,12 @@ def derived_c(scene, cfg, wind_fn, t_off, st) -> dict:
     rel_sq = rvx * rvx + rvy * rvy + rvz * rvz
     mach = safe_sqrt(rel_sq) / atm.speed_of_sound
     degen = (jnp.abs(ub) < 1e-6) & (jnp.abs(wb) < 1e-6)
-    aoa = jnp.where(degen, 0.0, arctan2(jnp.where(degen, 1.0, wb),
-                                        jnp.where(degen, 1.0, ub)))
+    aoa = jnp.where(degen, 0.0, jnp.arctan2(jnp.where(degen, 1.0, wb),
+                                            jnp.where(degen, 1.0, ub)))
     v_xz = safe_sqrt(ub * ub + wb * wb)
     bdeg = v_xz < 1e-6
-    beta = jnp.where(bdeg, 0.0, arctan2(jnp.where(bdeg, 1.0, vb),
-                                        jnp.where(bdeg, 1.0, v_xz)))
+    beta = jnp.where(bdeg, 0.0, jnp.arctan2(jnp.where(bdeg, 1.0, vb),
+                                            jnp.where(bdeg, 1.0, v_xz)))
     cp_val = dynamic_cp(rocket, mach)
     coeffs = aero_coefficients(
         rocket, mach, aoa, beta,
@@ -374,7 +337,7 @@ def derived_c(scene, cfg, wind_fn, t_off, st) -> dict:
     pitch = jnp.where(
         jnp.abs(sinp) >= 1,
         jnp.sign(sinp) * (jnp.pi / 2),
-        arcsin(jnp.clip(sinp, -1.0, 1.0)),
+        jnp.arcsin(jnp.clip(sinp, -1.0, 1.0)),
     )
     return {
         "mass": mp.mass,
@@ -382,11 +345,11 @@ def derived_c(scene, cfg, wind_fn, t_off, st) -> dict:
         "Ixx": mp.Ixx,
         "Iyy": mp.Iyy,
         "Izz": mp.Izz,
-        "euler_roll": arctan2(2.0 * (qw * qx + qy * qz),
-                              1.0 - 2.0 * (qx * qx + qy * qy)),
+        "euler_roll": jnp.arctan2(2.0 * (qw * qx + qy * qz),
+                                  1.0 - 2.0 * (qx * qx + qy * qy)),
         "euler_pitch": pitch,
-        "euler_yaw": arctan2(2.0 * (qw * qz + qx * qy),
-                             1.0 - 2.0 * (qy * qy + qz * qz)),
+        "euler_yaw": jnp.arctan2(2.0 * (qw * qz + qx * qy),
+                                 1.0 - 2.0 * (qy * qy + qz * qz)),
         "thrust": thrust,
         "drag": q_dyn * coeffs.cd * rocket.reference_area,
         "cd": coeffs.cd,
@@ -504,12 +467,12 @@ def _flight_setup(scene, cfg, wind_fn, ics, rail_scan_steps=None):
     vb = r[1] * rvx + r[4] * rvy + r[7] * rvz
     wb = r[2] * rvx + r[5] * rvy + r[8] * rvz
     degen = (jnp.abs(ub) < 1e-6) & (jnp.abs(wb) < 1e-6)
-    rail_aoa = jnp.where(degen, 0.0, arctan2(jnp.where(degen, 1.0, wb),
-                                             jnp.where(degen, 1.0, ub)))
+    rail_aoa = jnp.where(degen, 0.0, jnp.arctan2(jnp.where(degen, 1.0, wb),
+                                                 jnp.where(degen, 1.0, ub)))
     v_xz = safe_sqrt(ub * ub + wb * wb)
     sdeg = v_xz < 1e-6
-    rail_slip = jnp.where(sdeg, 0.0, arctan2(jnp.where(sdeg, 1.0, vb),
-                                             jnp.where(sdeg, 1.0, v_xz)))
+    rail_slip = jnp.where(sdeg, 0.0, jnp.arctan2(jnp.where(sdeg, 1.0, vb),
+                                                 jnp.where(sdeg, 1.0, v_xz)))
     rail_speed = safe_sqrt(vx * vx + vy * vy + vz * vz)
 
     # ---------------- main loop (`simulator.py:208-264`)
@@ -693,8 +656,6 @@ def flight_components(scene, cfg, wind_fn, ics) -> dict:
         for _ in range(max(1, cfg.unroll)):
             # unroll>1: K exactly-masked sub-steps per iteration — identical
             # results (main_body selects per-lane on ``lane_active``).
-            # NOTE: measured no-op for latency on this runtime (cost is
-            # per fusion execution, and unrolling keeps total fusions).
             c = main_body(c)
         return c
 
@@ -719,7 +680,7 @@ def flight_components_trajectory(scene, cfg, wind_fn, ics):
     time-major ``[T, ...]`` flat component arrays (T = ceil(max_steps /
     record_stride) + 1; index 0 is the rail-exit state) with a ``valid``
     mask. Flat [T, B] layout on purpose: a stacked [T, B, 3] scan output
-    would pad minor-dim 3 to the 128-wide lane tile (~42x bytes);
+    would carry a padded minor dimension of 3;
     ``engine.batch.simulate_flight_batch`` restacks once, outside the loop.
     """
     carry0, aux = _flight_setup(scene, cfg, wind_fn, ics)
@@ -764,8 +725,8 @@ def flight_components_trajectory(scene, cfg, wind_fn, ics):
     # dynamic_update_slice inside a while_loop that EXITS as soon as every
     # lane has terminated — the round-3 recorder was a fixed-length scan
     # that always executed all max_steps masked sub-steps, which made
-    # tiered-dt recording pay for the steps the tiering saved (measured
-    # ~4x on the envelope path, NOTES.md r4). Frames after the exit are
+    # tiered-dt recording pay for the steps the tiering saved. Frames
+    # after the exit are
     # backfilled with the frozen terminal record below — bit-identical to
     # what the full-length scan recorded (masked steps are no-ops, so
     # every post-termination frame repeats the frozen state).
@@ -823,17 +784,17 @@ def flight_components_envelope(scene, cfg, wind_fn, ics, channels, n_bins,
     trajectory frames (round 5; replaces the record-then-bin pipeline over
     `simulator.py:462-584` for envelope chunks).
 
-    The [T, B] frame buffers are what capped envelope chunks at 4096 lanes
-    (HBM OOM at 8192) while the physics rate keeps scaling to B=32k+
-    (measured: 5.6k lanes/s at B=4096 -> 22.3k at B=32768, summary-only).
+    The [T, B] frame buffers are what cap envelope chunks (device memory
+    runs out at a few thousand lanes) while the summary-only physics
+    scales to far wider batches.
     Here the recording cadence of ``flight_components_trajectory`` is kept
     — same masked steps, same ``record_stride``, same initial frame, same
     ``ran`` validity — but each record step folds its [B] channel values
     straight into per-time-bin accumulators carried through the while
     loop:
 
-      * count/mean/M2 via a per-step batched Welford merge (one-hot MXU
-        contractions; numerically the Chan update ``mc.envelope``'s host
+      * count/mean/M2 via a per-step batched Welford merge (one-hot
+        contractions at HIGHEST precision; numerically the Chan update ``mc.envelope``'s host
         merge uses, applied per record step instead of per chunk),
       * min/max via K-blocked one-hot reduces (a whole-K selector gets
         materialized by XLA — the r4 OOM lesson, NOTES.md),
@@ -887,12 +848,16 @@ def flight_components_envelope(scene, cfg, wind_fn, ics, channels, n_bins,
         m = jnp.isfinite(vals)
         mv = m.astype(dtype)
         v0 = jnp.where(m, vals, 0.0)
-        n_b = jnp.einsum("cb,bk->ck", mv, ohf)
-        s_b = jnp.einsum("cb,bk->ck", v0, ohf)
+        n_b = jnp.einsum("cb,bk->ck", mv, ohf,
+                         precision=jax.lax.Precision.HIGHEST)
+        s_b = jnp.einsum("cb,bk->ck", v0, ohf,
+                         precision=jax.lax.Precision.HIGHEST)
         mean_b = s_b / jnp.maximum(n_b, 1.0)
-        mb_lane = jnp.einsum("ck,bk->cb", mean_b, ohf)
+        mb_lane = jnp.einsum("ck,bk->cb", mean_b, ohf,
+                             precision=jax.lax.Precision.HIGHEST)
         dcen = (v0 - mb_lane) * mv
-        m2_b = jnp.einsum("cb,bk->ck", dcen * dcen, ohf)
+        m2_b = jnp.einsum("cb,bk->ck", dcen * dcen, ohf,
+                          precision=jax.lax.Precision.HIGHEST)
         tot = acc["n"] + n_b
         safe = jnp.maximum(tot, 1.0)
         delta = mean_b - acc["mean"]
@@ -926,8 +891,10 @@ def flight_components_envelope(scene, cfg, wind_fn, ics, channels, n_bins,
         # fixed-edge histogram, masked identically to the frame-path
         # kernel (_bin_histogram_mc): bin indicator carries ran, bucket
         # indicator carries finiteness
-        lo_lane = jnp.einsum("ck,bk->cb", lo_a, ohf)
-        w_lane = jnp.einsum("ck,bk->cb", width_a, ohf)
+        lo_lane = jnp.einsum("ck,bk->cb", lo_a, ohf,
+                             precision=jax.lax.Precision.HIGHEST)
+        w_lane = jnp.einsum("ck,bk->cb", width_a, ohf,
+                            precision=jax.lax.Precision.HIGHEST)
         frac = (v0 - lo_lane) / jnp.maximum(w_lane, 1e-30)
         bucket = jnp.clip(frac.astype(jnp.int32), 0, n_buckets - 1)
         contribs = []
@@ -940,7 +907,8 @@ def flight_components_envelope(scene, cfg, wind_fn, ics, channels, n_bins,
             ))
         clipped = jnp.where(m & ((frac < 0.0) | (frac >= n_buckets)),
                             1.0, 0.0)
-        clip_add = jnp.einsum("cb,bk->ck", clipped, ohf).sum(axis=1)
+        clip_add = jnp.einsum("cb,bk->ck", clipped, ohf,
+                              precision=jax.lax.Precision.HIGHEST).sum(axis=1)
         hw = hist_w.astype(jnp.float32)
 
         return {

@@ -13,7 +13,7 @@ Functional parity with `/root/reference/rocket_simulation/simulator.py:295-460`
   * all denominators are guarded so the *untaken* side of every mask is
     finite (clean under ``jax_debug_nans`` and differentiable).
 
-The whole function is a straight-line chain of elementwise VPU ops and tiny
+The whole function is a straight-line chain of elementwise ops and tiny
 gathers — under ``vmap`` it becomes [B]-wide vector code that XLA fuses into
 one kernel per RK4 stage.
 """

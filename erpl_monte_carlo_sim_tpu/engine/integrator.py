@@ -20,8 +20,8 @@ parachute latch mutated inside the RHS. Here the same semantics are a pure
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
 
+from ..utils import struct
 from ..models.scene import Scene
 from .config import SimConfig
 from .dynamics import rocket_dynamics

@@ -20,8 +20,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from ..utils import struct
 from ..models.atmosphere import atmosphere_properties, gravity_at
 from ..models.motor import propellant_remaining, thrust_at
 from ..models.rocket import aero_coefficients, mass_properties
@@ -145,8 +145,8 @@ def simulate_rail_masked(scene: Scene, cfg: SimConfig, state0: FlightState):
     """Rail phase on an already-batched [B] (or [TILE]) lane axis with a
     SCALAR-cond while_loop and explicit per-lane masking.
 
-    The twin of `simulate_rail` for contexts without vmap: the Pallas kernel
-    body and the host-chunked batch runner. Identical per-step math
+    The twin of `simulate_rail` for contexts without vmap: the
+    host-chunked batch runner. Identical per-step math
     (`simulator.py:63-96`)."""
     quat = state0.quaternion
     R = quaternion_to_rotation_matrix(quat)

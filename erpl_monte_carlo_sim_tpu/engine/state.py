@@ -10,8 +10,8 @@ the integrator as masks, per SURVEY.md §7's branch-free state-machine design).
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
 
+from ..utils import struct
 from ..ops.quaternion import euler_to_quaternion
 
 __all__ = ["FlightState", "InitialConditions", "initial_state"]
@@ -78,7 +78,7 @@ def initial_state(ic: InitialConditions) -> FlightState:
     """Build the t=0 state: full propellant, quaternion from Euler ICs.
 
     Shape-polymorphic (``[..., i]`` component indexing) so it runs per-lane
-    under vmap AND on [TILE]-batched lanes inside the Pallas kernel.
+    under vmap AND on an already-batched [B] lane axis.
     """
     quat = euler_to_quaternion(
         ic.attitude[..., 0], ic.attitude[..., 1], ic.attitude[..., 2]

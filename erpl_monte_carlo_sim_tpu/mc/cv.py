@@ -317,7 +317,8 @@ def _wind_scores(wind_ctrl, dtype):
             [mean_uv, jnp.zeros_like(mean_uv[..., :1])], axis=-1
         )
     # scores[n, k, c] = proj[:, k] . turb[n, :, c]; vertical runs at 0.3x
-    s = jnp.einsum("nic,ik->nkc", turb, proj)
+    s = jnp.einsum("nic,ik->nkc", turb, proj,
+                   precision=jax.lax.Precision.HIGHEST)
     s = s / jnp.asarray([1.0, 1.0, 0.3], dtype)
     return s.reshape(s.shape[0], -1)
 
@@ -432,7 +433,9 @@ def cv_slab_moments(sample, summary, valid, include, params, motor,
     centered about this slab's own means (f32 raw cross-moments of
     25 km-scale metrics over 262k lanes would lose ~3 digits).
     ``include`` masks padding lanes of a ragged final slab. The z'z
-    reduction is one [d,n]x[n,d] matmul — MXU work, not a host loop.
+    reduction is one [d,n]x[n,d] matmul on the device, not a host loop,
+    at HIGHEST precision (a reduced-precision f32 Gram matrix would eat
+    the variance-reduction factors the analyzer reports).
     """
     z = _controls(sample, params, motor, wind_ctrl)
     t = _targets(summary, valid, z.dtype)
@@ -445,7 +448,10 @@ def cv_slab_moments(sample, summary, valid, include, params, motor,
     mt = jnp.sum(t, axis=0) / nf
     zc = (z - mz) * inc
     tc = (t - mt) * inc
-    return n, mz, mt, zc.T @ zc, zc.T @ tc, tc.T @ tc
+    hi = jax.lax.Precision.HIGHEST
+    return (n, mz, mt, jnp.matmul(zc.T, zc, precision=hi),
+            jnp.matmul(zc.T, tc, precision=hi),
+            jnp.matmul(tc.T, tc, precision=hi))
 
 
 class CVMoments:

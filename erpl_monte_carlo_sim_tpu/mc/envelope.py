@@ -80,7 +80,7 @@ class EnvelopeConfig:
     # lane contributes many strongly-autocorrelated frames (~25 at the
     # default strides), so the bands' effective sample count is set by the
     # LANE count, not the frame count — a stride of 4 cuts the dominant
-    # binning matmul 4x (measured, NOTES.md r4) at no visible band change.
+    # binning matmul 4x at no visible band change.
     hist_frame_stride: int = 1
 
 
@@ -113,10 +113,11 @@ def _bin_moments_mc(t, valid, values, bin_dt, n_bins):
 
     ``values`` is [C, B, T]; returns [C, n_bins] arrays in ONE dispatch.
     All reductions are one-hot contractions (``einsum`` over the shared
-    [B, T, K] bin indicator — XLA fuses the iota-compare into the MXU
-    operands) instead of ``segment_sum``: TPU scatter serializes, and the
-    one-hot matmul measured 5-10x faster at envelope-chunk shapes
-    (NOTES.md r4 recording-path ablation). The M2 contraction is CENTERED
+    [B, T, K] bin indicator — XLA fuses the iota-compare into the
+    contraction operands) instead of ``segment_sum``. Whether a scatter is
+    cheaper on the GPU is an open measurement. Every f32 contraction runs
+    at HIGHEST precision: a reduced-precision (TF32) pass would round a
+    25 km altitude by ~12 m before it is binned. The M2 contraction is CENTERED
     (bin means broadcast back through the same one-hot) — raw
     sum-of-squares cancels catastrophically in f32 when std << mean
     (altitude: 25 km +- 50 m loses every digit).
@@ -125,16 +126,18 @@ def _bin_moments_mc(t, valid, values, bin_dt, n_bins):
     m = valid[None] & jnp.isfinite(values)          # [C,B,T]
     ohf = (ids[..., None] == jnp.arange(n_bins)).astype(values.dtype)
     v0 = jnp.where(m, values, 0.0)
-    n = jnp.einsum("cbt,btk->ck", m.astype(values.dtype), ohf)
-    s = jnp.einsum("cbt,btk->ck", v0, ohf)
+    n = jnp.einsum("cbt,btk->ck", m.astype(values.dtype), ohf,
+                   precision=jax.lax.Precision.HIGHEST)
+    s = jnp.einsum("cbt,btk->ck", v0, ohf, precision=jax.lax.Precision.HIGHEST)
     mean = s / jnp.maximum(n, 1.0)
-    mb = jnp.einsum("ck,btk->cbt", mean, ohf)
+    mb = jnp.einsum("ck,btk->cbt", mean, ohf,
+                    precision=jax.lax.Precision.HIGHEST)
     c = jnp.where(m, values - mb, 0.0)
-    m2 = jnp.einsum("cbt,btk->ck", c * c, ohf)
+    m2 = jnp.einsum("cbt,btk->ck", c * c, ohf,
+                    precision=jax.lax.Precision.HIGHEST)
     # min/max: bin-BLOCKED one-hot reduces. A whole-K selector feeding both
     # reductions gets MATERIALIZED by XLA ([B,T,K] bool = 8.7 GB at chunk
-    # 4096: measured HBM OOM), and TPU scatter (segment_min/max) costs
-    # ~160 ms/op at these shapes (measured). Blocking K and giving each
+    # 4096: out of device memory). Blocking K and giving each
     # reduction its OWN selector keeps the compare fused into the reduce
     # with bounded temp memory (~[B,T,block] per map step).
     big = jnp.asarray(jnp.inf, values.dtype)
@@ -167,7 +170,7 @@ def _bin_histogram_mc(t, valid, values, bin_dt, lo, width, n_bins,
                       n_buckets, frame_stride=1):
     """Multi-channel fixed-edge per-bin histograms [C, n_bins, n_buckets]
     + per-channel clipped counts, one dispatch. The count is a two-sided
-    one-hot contraction on the MXU (bin indicator x bucket indicator,
+    one-hot contraction (bin indicator x bucket indicator,
     bf16 inputs / f32 accumulation — counts are exact integers far below
     2^24). ``frame_stride`` subsamples frames for the histogram ONLY
     (see ``EnvelopeConfig.hist_frame_stride``)."""
@@ -178,8 +181,10 @@ def _bin_histogram_mc(t, valid, values, bin_dt, lo, width, n_bins,
     ids = jnp.clip(jnp.floor(t / bin_dt).astype(jnp.int32), 0, n_bins - 1)
     m = valid[None] & jnp.isfinite(values)
     ohk = (ids[..., None] == jnp.arange(n_bins)).astype(values.dtype)
-    lo_s = jnp.einsum("ck,btk->cbt", lo, ohk)
-    w_s = jnp.einsum("ck,btk->cbt", width, ohk)
+    lo_s = jnp.einsum("ck,btk->cbt", lo, ohk,
+                      precision=jax.lax.Precision.HIGHEST)
+    w_s = jnp.einsum("ck,btk->cbt", width, ohk,
+                     precision=jax.lax.Precision.HIGHEST)
     frac = (values - lo_s) / jnp.maximum(w_s, 1e-30)
     bucket = jnp.clip(frac.astype(jnp.int32), 0, n_buckets - 1)
     ohj = ((bucket[..., None] == jnp.arange(n_buckets))
@@ -187,7 +192,8 @@ def _bin_histogram_mc(t, valid, values, bin_dt, lo, width, n_bins,
     h = jnp.einsum("btk,cbtj->ckj", ohk.astype(jnp.bfloat16), ohj,
                    preferred_element_type=jnp.float32)
     clipped = jnp.where(m & ((frac < 0.0) | (frac >= n_buckets)), 1.0, 0.0)
-    clip_ct = jnp.einsum("cbt,btk->ck", clipped, ohk).sum(axis=1)
+    clip_ct = jnp.einsum("cbt,btk->ck", clipped, ohk,
+                         precision=jax.lax.Precision.HIGHEST).sum(axis=1)
     return h, clip_ct
 
 
@@ -197,7 +203,7 @@ def _bin_histogram(t, valid, value, bin_dt, lo, width, n_bins, n_buckets):
     clipped count — kept (segment-sum form) for the shard_map collective
     path (``parallel.collective_envelope``), where the per-shard batch is
     small and the psum dominates; the chunked host path uses the
-    MXU-contraction ``_bin_histogram_mc`` above.
+    contraction ``_bin_histogram_mc`` above.
 
     ``lo``/``width`` are the calibrated per-bin bucket grids; samples
     outside clamp into the edge buckets (counted in ``clipped``).
@@ -257,10 +263,8 @@ class EnvelopeAccumulator:
         """Fold in one batched Trajectory ([B, T, ...] leaves).
 
         TWO device dispatches per chunk (multi-channel moment contraction,
-        multi-channel histogram) — the round-3 version dispatched 3 calls
-        PER CHANNEL and its segment-op kernels serialized on TPU scatter
-        (measured 8.6 s/chunk for 6 channels at [2048, 7501]; the
-        contraction kernels bring it under 1 s — NOTES.md r4)."""
+        multi-channel histogram); an earlier version dispatched 3
+        segment-op calls PER CHANNEL."""
         env = self.env
         t = traj.time
         valid = traj.valid

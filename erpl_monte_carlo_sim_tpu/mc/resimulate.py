@@ -67,7 +67,7 @@ class ResimulationMixin:
         SAME SimConfig the Monte Carlo ran (tiered-dt flags included).
 
         Determinism-by-key makes any lane exactly re-creatable
-        (the TPU-native version of the reference's persist-every-trajectory
+        (the batched version of the reference's persist-every-trajectory
         strategy, `monte_carlo.py:510-517`): the Monte Carlo pass stores only
         summaries, and plotting/export re-simulates the handful of lanes it
         needs. Recording runs on the component core
@@ -188,8 +188,7 @@ class ResimulationMixin:
             ids = lane_ids[start:start + chunk]
             if use_inline and acc._edges is not None:
                 # frameless in-loop binning: no [T, B] buffers, so chunks
-                # scale to the physics path's operating point (measured
-                # r5: 4096-lane OOM ceiling gone, see NOTES.md)
+                # scale past the frame path's memory ceiling
                 from ..engine.batch import simulate_envelope_batch
 
                 scene_sel, ic_sel = self._select_lanes(ids)

@@ -2,7 +2,7 @@
 
 ``mc.checkpoint.save_summaries`` persists a COMPLETED analysis; this
 module persists the slab loop's accumulator state MID-RUN so a killed
-multi-hour run (100M+ lanes at ~2.4 s/slab) resumes from the last
+multi-hour run (100M+ lanes) resumes from the last
 checkpointed slab instead of restarting. Because every slab's
 dispersions derive from ``fold_in(run_key, slab_idx)`` and all
 accumulation is deterministic host-side merging, a resumed run produces
@@ -24,7 +24,7 @@ of silently mixing two populations.
 Reference counterpart: none — its closest notion of resume is "every
 trajectory is a JSON file and seeds are deterministic" (SURVEY.md §5.4);
 at reference scale (minutes) restarting is fine. This exists because the
-TPU rebuild runs 5-6 orders of magnitude more lanes per call.
+batched rebuild runs 5-6 orders of magnitude more lanes per call.
 
 Format notes: one uncompressed ``.npz`` (state is written every
 ``checkpoint_every`` slabs — zlib on the ~100 MB worst case would cost a
@@ -79,7 +79,7 @@ def run_fingerprint(analyzer, ic, n_samples, slab, seed, base_wind,
     h.update(json.dumps([
         _VERSION, int(n_samples), int(slab), int(seed),
         # backend: XLA transcendentals differ ~1e-8 between platforms
-        # (CLAUDE.md), so a TPU run resumed on CPU would silently mix two
+        # (CLAUDE.md), so a GPU run resumed on CPU would silently mix two
         # numerically different slab populations — refuse instead
         jax.default_backend(),
         analyzer.sampler, int(analyzer.sobol_scrambles),

@@ -21,7 +21,7 @@ output", eqs. (b)/(f) — the recommended pair):
 
 with A, B two independent draw matrices and AB_i equal to A except
 channel group i's columns, which come from B. Cost: (k_active + 2)
-batched simulations of ``n`` lanes each — embarrassingly TPU-friendly
+batched simulations of ``n`` lanes each — embarrassingly batch-friendly
 (each matrix is one ``simulate_summary_batch`` dispatch).
 
 ``pairs=[(g1, g2), ...]`` additionally swaps BOTH groups of each listed

@@ -27,7 +27,7 @@ acceptance rate does not collapse as d grows, unlike random-walk
 Metropolis). beta adapts toward ``target_accept`` on a sqrt-damped
 schedule.
 
-TPU mapping: the chain dimension is BATCHED — every chain advances one
+Device mapping: the chain dimension is BATCHED — every chain advances one
 step per device call, so a level's MCMC is ``chain_len - 1`` batched
 evaluations of ``n_keep`` lanes each (full dispersed flights through the
 component engine when driven by ``MonteCarloAnalyzer.subset_tail``). The

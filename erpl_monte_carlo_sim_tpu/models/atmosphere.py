@@ -24,10 +24,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import jax.numpy as jnp
-from flax import struct
 
+from ..utils import struct
 from ..ops.frames import GAMMA_AIR, R_AIR
-from ..ops.math import powf
 
 __all__ = ["AtmosphereParams", "AtmosProperties", "atmosphere_properties", "gravity_at"]
 
@@ -96,7 +95,7 @@ def atmosphere_properties(p: AtmosphereParams, altitude) -> AtmosProperties:
     # Layer-boundary pressures (scalars derived from params; XLA folds these
     # to constants for unperturbed scenes, and they broadcast under vmap for
     # perturbed ones).
-    p11 = P0 * powf(Ts / T0, pow_exp)
+    p11 = P0 * (Ts / T0) ** pow_exp
     p20 = p11 * jnp.exp(-g * (h_strat - h_trop) / (R * Ts))
     p25 = p20 * jnp.exp(-g * 5000.0 / (R * Ts))
 
@@ -112,14 +111,14 @@ def atmosphere_properties(p: AtmosphereParams, altitude) -> AtmosProperties:
     # Troposphere: clamp T > 0 so the fractional power stays finite for
     # lanes whose altitude is wildly out of range (untaken branch).
     t_tropo_safe = jnp.maximum(t_tropo, 1.0)
-    p_tropo = P0 * powf(t_tropo_safe / T0, pow_exp)
+    p_tropo = P0 * (t_tropo_safe / T0) ** pow_exp
     p_iso = p11 * jnp.exp(-g * (h - h_trop) / (R * Ts))
     p_2025 = p20 * jnp.exp(-g * (h - h_strat) / (R * Ts))
     # 25-32 km gradient layer: anchor temperature in the power law is the
     # *stratosphere* temp, not the actual 25 km temperature — reference quirk
     # preserved (`environment.py:71-81`).
     t_upper_safe = jnp.maximum(t_upper, 1.0)
-    p_2532 = p25 * powf(t_upper_safe / Ts, g / (R * 0.0028))
+    p_2532 = p25 * (t_upper_safe / Ts) ** (g / (R * 0.0028))
     scale_height = R * t_meso / g
     p_meso = 868.02 * jnp.exp(-(h - 32000.0) / scale_height)
 

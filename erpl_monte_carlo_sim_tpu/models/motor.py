@@ -1,7 +1,7 @@
 """Motor / propulsion model as a unified pytree.
 
 Functional parity with `/root/reference/rocket_simulation/motor.py:8-186`
-(SolidMotor and LiquidMotor), re-designed TPU-first as ONE parameterization.
+(SolidMotor and LiquidMotor), re-designed for batching as ONE parameterization.
 
 Both reference motors reduce to the same thrust law:
 
@@ -21,8 +21,8 @@ remaining is the linear ramp (`motor.py:86-93`).
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
 
+from ..utils import struct
 from ..ops.interp import interpolate_1d
 
 __all__ = ["MotorParams", "solid_motor", "liquid_motor", "thrust_at",
@@ -57,8 +57,8 @@ class MotorParams:
     # multiplier (`motor.py:104-108,123,175-183`), which factors out:
     #     thrust = scale * (interp(t) + Ae * (101325 - p)).
     # Keeping it as a scalar lets the Monte Carlo batch SHARE the curve
-    # tables — per-lane tables would force batched gathers in the hot loop,
-    # which are ~200x slower on TPU than a shared-table interp.
+    # tables — per-lane tables would force batched gathers in the hot loop
+    # (their cost on the GPU is not measured yet).
     thrust_scale: jnp.ndarray = 1.0
     # Metadata kept for report-schema parity (never read in the hot loop).
     total_impulse: jnp.ndarray = 0.0

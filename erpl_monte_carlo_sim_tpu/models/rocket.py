@@ -1,7 +1,7 @@
 """Vehicle geometry, mass properties, and aerodynamics as a pytree model.
 
 Functional parity with `/root/reference/rocket_simulation/rocket.py:8-223`,
-re-designed TPU-first:
+re-designed for batching:
 
   * configuration is a frozen dataclass of jnp scalars/arrays (vmaps over a
     Monte Carlo batch; no mutable attribute bags),
@@ -27,8 +27,8 @@ import math
 from typing import NamedTuple
 
 import jax.numpy as jnp
-from flax import struct
 
+from ..utils import struct
 from ..ops.interp import interpolate_1d
 
 __all__ = [

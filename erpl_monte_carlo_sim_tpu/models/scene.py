@@ -5,13 +5,13 @@ The reference composes four mutable objects into FlightSimulator
 
   * a Monte Carlo batch is just a Scene whose leaves carry a leading batch
     axis (built by ``mc.dispersions``), consumed directly by ``vmap``,
-  * sharding a run over a TPU mesh is a ``NamedSharding`` on those same
+  * sharding a run over a device mesh is a ``NamedSharding`` on those same
     leaves — no pickling, no process pool.
 """
 
 from __future__ import annotations
 
-from flax import struct
+from ..utils import struct
 
 from .atmosphere import AtmosphereParams
 from .motor import MotorParams

@@ -1,7 +1,7 @@
 """Wind field model: profile tables, stochastic turbulence, CSV forecasts.
 
 Functional parity with `/root/reference/rocket_simulation/environment.py:110-276`
-(WindModel), re-designed TPU-first:
+(WindModel), re-designed for batching:
 
   * a wind field is a frozen pytree of ``(altitudes[N], wind[N,3])`` — the
     in-flight query is ONE fused searchsorted+gather (`interpolate_vec`)
@@ -25,8 +25,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from ..utils import struct
 from ..ops.interp import interpolate_vec
 
 __all__ = [
@@ -189,7 +189,7 @@ class WindModes:
 
         wind_c(h) = sum_m  Q_m(h) * scores[m, c]
 
-    with ``Q_m(h)`` the shared tent-interpolated basis row — per-lane HBM
+    with ``Q_m(h)`` the shared tent-interpolated basis row — per-lane memory
     traffic per wind eval drops from 3N to 3M table elements (N=100,
     M=K+aux ~ 26 at the default K=24), which is the measured residual
     ceiling of rk2 fast mode (NOTES.md r4 ablation: zero-table-byte
@@ -272,7 +272,8 @@ def compress_wind(field: WindField, basis) -> WindModes:
             "are already cheap (broadcast lane axis)"
         )
     q = jnp.asarray(basis, wind.dtype)
-    scores = jnp.einsum("nm,bnc->bmc", q, wind)
+    scores = jnp.einsum("nm,bnc->bmc", q, wind,
+                        precision=jax.lax.Precision.HIGHEST)
     return WindModes(altitudes=jnp.asarray(field.altitudes), basis=q,
                      scores=scores)
 

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-from .math import arctan2, safe_norm
+from .math import safe_norm
 
 GAMMA_AIR = 1.4
 R_AIR = 287.053  # J/(kg K)
@@ -47,7 +47,7 @@ def angle_of_attack(velocity_body: jnp.ndarray) -> jnp.ndarray:
     # unchanged: the degenerate output is the same literal 0.
     u_s = jnp.where(degenerate, 1.0, u)
     w_s = jnp.where(degenerate, 0.0, w)
-    return jnp.where(degenerate, 0.0, arctan2(w_s, u_s))
+    return jnp.where(degenerate, 0.0, jnp.arctan2(w_s, u_s))
 
 
 def sideslip_angle(velocity_body: jnp.ndarray) -> jnp.ndarray:
@@ -64,7 +64,7 @@ def sideslip_angle(velocity_body: jnp.ndarray) -> jnp.ndarray:
     # atan2 never sees (0, 0); primal values are unchanged.
     v_xz = jnp.sqrt(jnp.where(degenerate, 1.0, sq))
     v_s = jnp.where(degenerate, 0.0, v)
-    return jnp.where(degenerate, 0.0, arctan2(v_s, v_xz))
+    return jnp.where(degenerate, 0.0, jnp.arctan2(v_s, v_xz))
 
 
 def wind_to_body_matrix(alpha, beta) -> jnp.ndarray:

@@ -1,10 +1,8 @@
 """Table lookup / interpolation primitives.
 
 The reference uses ``np.interp`` everywhere (`utils.py:147-149`), which
-CLAMPS at table endpoints. ``jnp.interp`` has the same clamping semantics and
-lowers to a fused searchsorted+gather on TPU, so we use it directly. The
-wrappers here exist to pin the semantic contract and to give the hot path a
-single choke point if we later swap in a Pallas gather kernel.
+CLAMPS at table endpoints. The wrappers here pin that semantic contract
+and give the hot path a single choke point for how a table is queried.
 """
 
 from __future__ import annotations
@@ -15,9 +13,8 @@ __all__ = ["interpolate_1d", "interpolate_vec"]
 
 
 def _knot(x_table, i):
-    """Static endpoint read. Plain ``x_table[0]`` lowers to a
-    ``dynamic_slice`` primitive, which Mosaic (Pallas TPU) cannot lower —
-    ``lax.slice_in_dim`` with literal bounds stays a static ``slice``."""
+    """Static endpoint read: ``lax.slice_in_dim`` with literal bounds is a
+    static ``slice`` (plain ``x_table[0]`` traces to a ``dynamic_slice``)."""
     import jax
 
     n = x_table.shape[-1]
@@ -33,16 +30,14 @@ def interpolate_1d(x, x_table: jnp.ndarray, y_table: jnp.ndarray) -> jnp.ndarray
 
     Implemented with the same gather-free tent-basis form as
     ``interpolate_vec`` (clamped linear interp == hat-weighted sum of table
-    values) rather than ``jnp.interp``: there is no searchsorted/gather to
-    lower, and pure arithmetic runs unchanged inside Pallas kernels, so the
-    physics model code is shared between the XLA and Pallas paths.
+    values) rather than ``jnp.interp``: the query is elementwise arithmetic
+    and a reduction that fuse into the surrounding loop body, with no
+    searchsorted or gather.
 
     LAYOUT: the knot axis K leads — intermediates are [K, ...x-shape], NOT
-    [..., K]. On TPU the minor-most dimension tiles to 128 lanes; a batched
-    query with a trailing 8-10 knot axis pads 8->128 (16x wasted vregs/HBM
-    on every Mach-table op in the hot loop), while knots-leading puts the
-    batch on the lane axis with zero padding and the tiny K on sublanes.
-    Per-element math is identical (elementwise ops commute with layout).
+    [..., K], so the batch stays the minor (contiguous) axis and the tiny
+    K is the reduced one. Per-element math is identical (elementwise ops
+    commute with layout).
     """
     x = jnp.asarray(x)
     xc = jnp.clip(x, _knot(x_table, 0), _knot(x_table, -1))
@@ -63,12 +58,11 @@ def interpolate_vec(x, x_table: jnp.ndarray, y_table: jnp.ndarray) -> jnp.ndarra
 
     GATHER-FREE tent-basis formulation: clamped piecewise-linear
     interpolation is exactly a weighted sum of the table rows with "tent"
-    (hat) weights, so the whole query is a broadcast multiply + reduction —
-    pure VPU work that fuses into the surrounding kernel. This matters
-    because the Monte Carlo batch carries a PER-LANE wind table
-    ([B, N, 3] under vmap) and per-lane gathers lower catastrophically on
-    TPU (measured ~200x slower than arithmetic at B=8192), while this form
-    vectorizes perfectly.
+    (hat) weights, so the whole query is a broadcast multiply + reduction
+    that fuses into the surrounding loop body. The Monte Carlo batch
+    carries a PER-LANE wind table ([B, N, 3] under vmap); this form reads
+    it with no per-lane gather. (Whether a 2-knot gather is cheaper on the
+    GPU is an open measurement.)
 
     Semantics match ``np.interp`` per component (`environment.py:267-276`):
     clamped at both endpoints, ``x_table`` strictly increasing.
@@ -87,8 +81,7 @@ def interpolate_vec(x, x_table: jnp.ndarray, y_table: jnp.ndarray) -> jnp.ndarra
     down = ((x_table + right) - xc[..., None]) / right     # 1 at node, 0 above
     w = jnp.clip(jnp.minimum(up, down), 0.0, 1.0)
     # Per-component sums: a single w[..., :, None] * y_table product would
-    # materialize a [..., N, C] temporary — at Monte Carlo tile sizes that
-    # triples the Pallas kernel's VMEM footprint for no benefit.
+    # materialize a [..., N, C] temporary for no benefit.
     comps = [
         jnp.sum(w * y_table[..., :, c], axis=-1)
         for c in range(y_table.shape[-1])

@@ -1,29 +1,10 @@
-"""Pallas-safe inverse-trig: atan / atan2 / asin polyfills.
-
-This machine's Mosaic (Pallas TPU) lowering has no ``atan``/``atan2``/``asin``
-primitives. The flight physics needs them (aero angles, Euler extraction),
-so this module provides drop-in functions that:
-
-  * outside a Pallas kernel, call the native ``jnp`` ops (full precision),
-  * inside a Pallas kernel (``pallas_math()`` active), evaluate a classic
-    Cephes-style range-reduced polynomial — max abs error ~2e-7 rad, i.e.
-    float32-exact, from only +,*,/ and ``where`` (all Mosaic-supported).
-
-Range reduction for atan(x), x >= 0:
-    x > tan(3pi/8): atan(x) = pi/2 + atan(-1/x)
-    x > tan(pi/8):  atan(x) = pi/4 + atan((x-1)/(x+1))
-reduces the argument to [-tan(pi/8), tan(pi/8)], where a 7th-order odd
-polynomial suffices.
-"""
+"""Gradient-safe and broadcasting elementwise helpers for the flight core."""
 
 from __future__ import annotations
 
-import contextlib
-
 import jax.numpy as jnp
 
-__all__ = ["arctan", "arctan2", "arcsin", "pallas_math", "bcast_where",
-           "powf", "safe_norm", "safe_sqrt"]
+__all__ = ["bcast_where", "safe_norm", "safe_sqrt"]
 
 
 def safe_norm(v, axis=-1, keepdims=False):
@@ -61,25 +42,12 @@ def safe_sqrt(x):
     return jnp.where(ok, jnp.sqrt(jnp.where(ok, x, 1.0)), 0.0)
 
 
-def powf(x, y):
-    """``x ** y`` for positive ``x`` with a possibly-traced exponent.
-
-    Mosaic cannot legalize ``math.powf`` with a non-constant exponent;
-    ``exp(y * log(x))`` is the identical computation from supported ops.
-    Outside Pallas the native power is used (handles x == 0 edge cases).
-    """
-    if not _PALLAS_MODE:
-        return x**y
-    return jnp.exp(y * jnp.log(jnp.maximum(x, 1e-30)))
-
-
 def bcast_where(mask, a, b):
     """``jnp.where`` with a lane mask broadcast over trailing dims.
 
-    Mosaic cannot reshape an i1 vector to insert a minor dim (only 32-bit
-    types), so ``mask[..., None]`` fails inside Pallas kernels. Expanding the
-    mask as int32 and comparing keeps every reshape 32-bit. Identical
-    semantics on the XLA path (the cast folds away).
+    ``mask`` is [B] (or any leading shape of ``a``); it is expanded over
+    ``a``'s trailing dims. Boolean operands are selected with logic ops.
+    The result equals ``jnp.where(mask[..., None, ...], a, b)``.
     """
     a = jnp.asarray(a)
     extra = a.ndim - jnp.ndim(mask)
@@ -91,85 +59,5 @@ def bcast_where(mask, a, b):
             != 0
         )
     if a.dtype == jnp.bool_:
-        # select_n on i1 vectors needs an i8->i1 truncation Mosaic lacks;
-        # pure logic ops select booleans without one.
         return (mask & a) | (~mask & jnp.asarray(b))
     return jnp.where(mask, a, b)
-
-_PALLAS_MODE = False
-
-
-@contextlib.contextmanager
-def pallas_math():
-    """Route arctan/arctan2/arcsin through the polynomial forms (use while
-    tracing a Pallas kernel body)."""
-    global _PALLAS_MODE
-    prev = _PALLAS_MODE
-    _PALLAS_MODE = True
-    try:
-        yield
-    finally:
-        _PALLAS_MODE = prev
-
-
-_TAN_3PI_8 = 2.414213562373095
-_TAN_PI_8 = 0.4142135623730950
-
-
-def _atan_poly(x):
-    """Cephes atanf core, vectorized & branch-free."""
-    sign = jnp.sign(x)
-    ax = jnp.abs(x)
-
-    hi = ax > _TAN_3PI_8
-    mid = (~hi) & (ax > _TAN_PI_8)
-
-    safe_ax = jnp.maximum(ax, 1e-30)
-    x_hi = -1.0 / safe_ax
-    x_mid = (ax - 1.0) / (ax + 1.0)
-    xr = jnp.where(hi, x_hi, jnp.where(mid, x_mid, ax))
-    offs = jnp.where(
-        hi, jnp.pi / 2, jnp.where(mid, jnp.pi / 4, jnp.zeros_like(ax))
-    )
-
-    z = xr * xr
-    y = (
-        ((8.05374449538e-2 * z - 1.38776856032e-1) * z + 1.99777106478e-1) * z
-        - 3.33329491539e-1
-    ) * z * xr + xr
-    return sign * (offs + y)
-
-
-def arctan(x):
-    if not _PALLAS_MODE:
-        return jnp.arctan(x)
-    return _atan_poly(jnp.asarray(x))
-
-
-def arctan2(y, x):
-    if not _PALLAS_MODE:
-        return jnp.arctan2(y, x)
-    y = jnp.asarray(y)
-    x = jnp.asarray(x)
-    safe_x = jnp.where(x == 0.0, 1.0, x)
-    base = _atan_poly(y / safe_x)
-    pi = jnp.pi
-    # Quadrant fixup (matches np.arctan2, including the axes)
-    res = jnp.where(
-        x > 0.0,
-        base,
-        jnp.where(
-            x < 0.0,
-            jnp.where(y >= 0.0, base + pi, base - pi),
-            # x == 0
-            jnp.where(y > 0.0, pi / 2, jnp.where(y < 0.0, -pi / 2, 0.0)),
-        ),
-    )
-    return res
-
-
-def arcsin(x):
-    if not _PALLAS_MODE:
-        return jnp.arcsin(x)
-    x = jnp.asarray(x)
-    return arctan2(x, jnp.sqrt(jnp.maximum(1.0 - x * x, 0.0)))

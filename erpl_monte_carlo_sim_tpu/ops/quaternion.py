@@ -16,8 +16,6 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-from .math import arcsin, arctan2
-
 __all__ = [
     "normalize_quaternion",
     "quaternion_multiply",
@@ -37,7 +35,7 @@ def normalize_quaternion(q: jnp.ndarray) -> jnp.ndarray:
     `q` has shape ``(..., 4)``.
     """
     norm = jnp.linalg.norm(q, axis=-1, keepdims=True)
-    # identity built by concat (not .at[].set: scatter doesn't lower in Pallas)
+    # identity built by concat: elementwise, no scatter
     identity = jnp.concatenate(
         [jnp.ones_like(q[..., :1]), jnp.zeros_like(q[..., 1:])], axis=-1
     )
@@ -87,8 +85,8 @@ def rotate_by_matrix(R: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
     """``R @ v`` for batched 3x3 matrices and 3-vectors.
 
     Written as explicit sum-of-products: a [B,3,3]x[B,3] einsum would lower
-    to a batched matmul of degenerate tiles on TPU; this form is 9 fused
-    multiply-adds on the VPU.
+    to a batched matmul of degenerate 3x3 tiles; this form is 9 fused
+    elementwise multiply-adds.
     """
     return jnp.stack(
         [
@@ -101,7 +99,7 @@ def rotate_by_matrix(R: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
 
 
 def rotate_by_matrix_t(R: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
-    """``R.T @ v`` for batched 3x3 matrices and 3-vectors (VPU form)."""
+    """``R.T @ v`` for batched 3x3 matrices and 3-vectors (elementwise form)."""
     return jnp.stack(
         [
             R[..., 0, 0] * v[..., 0] + R[..., 1, 0] * v[..., 1] + R[..., 2, 0] * v[..., 2],
@@ -152,16 +150,16 @@ def quaternion_to_euler(q: jnp.ndarray) -> jnp.ndarray:
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     sinr_cosp = 2 * (w * x + y * z)
     cosr_cosp = 1 - 2 * (x * x + y * y)
-    roll = arctan2(sinr_cosp, cosr_cosp)
+    roll = jnp.arctan2(sinr_cosp, cosr_cosp)
 
     sinp = 2 * (w * y - z * x)
     pitch = jnp.where(
         jnp.abs(sinp) >= 1,
         jnp.sign(sinp) * (jnp.pi / 2),
-        arcsin(jnp.clip(sinp, -1.0, 1.0)),
+        jnp.arcsin(jnp.clip(sinp, -1.0, 1.0)),
     )
 
     siny_cosp = 2 * (w * z + x * y)
     cosy_cosp = 1 - 2 * (y * y + z * z)
-    yaw = arctan2(siny_cosp, cosy_cosp)
+    yaw = jnp.arctan2(siny_cosp, cosy_cosp)
     return jnp.stack([roll, pitch, yaw], axis=-1)

@@ -2,8 +2,8 @@
 
 The reference's entire distributed layer is a single-host
 ``ProcessPoolExecutor`` moving pickled scenes (`monte_carlo.py:63-141`). The
-TPU-native replacement: put the Monte Carlo batch axis on a
-``jax.sharding.Mesh`` and let XLA insert ICI collectives. There is exactly
+replacement: put the Monte Carlo batch axis on a ``jax.sharding.Mesh``
+and let XLA insert the collectives (NCCL between GPUs). There is exactly
 one parallelism in this problem — data parallelism over Monte Carlo lanes
 (SURVEY.md §2) — so the mesh is 1-D and every batched leaf is sharded along
 it; scene tables stay replicated.
@@ -34,13 +34,13 @@ def init_distributed(
 
     The pod-scale replacement for the reference's single-host process pool
     (`monte_carlo.py:92-154`): after this, ``jax.devices()`` is the GLOBAL
-    device list, a ``make_mesh()`` spans hosts, lane shards ride ICI within
-    a slice and DCN across slices, and ``collective_stats`` reductions are
-    global. No-op (returns 0) when called single-process with no
+    device list, a ``make_mesh()`` spans hosts, lane shards ride the
+    device interconnect within a host and the network across hosts, and
+    ``collective_stats`` reductions are global. No-op (returns 0) when called single-process with no
     coordinator. Returns this process's id.
 
-    On TPU pods the three arguments are inferred from the environment;
-    pass them explicitly for CPU multi-process validation
+    Pass the three arguments explicitly (the coordinator is
+    ``host:port`` of process 0), e.g. for CPU multi-process validation
     (``scripts/pod_scale.py --num-processes N --process-id I``).
     """
     if coordinator_address is None and num_processes is None:

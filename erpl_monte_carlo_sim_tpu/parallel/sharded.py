@@ -128,7 +128,7 @@ def collective_stats(values: jnp.ndarray, mask: jnp.ndarray | None,
 
     ``values``/``mask`` are [n] arrays sharded (or shardable) along the batch
     axis; ``mask=None`` means all lanes (non-finite values are always
-    excluded). Moment accumulators ride ``psum`` over ICI. Percentiles: for
+    excluded). Moment accumulators ride ``psum``. Percentiles: for
     n up to ``exact_percentile_threshold``, one ``all_gather`` of the scalar
     metric followed by a replicated sort (EXACT np.percentile semantics);
     beyond it, the two-pass collective histogram
@@ -336,10 +336,20 @@ def collective_cv_moments(sample, summary, valid, mask, params, motor,
     The control matrix is built per shard (elementwise in the lane axis, no
     communication); means ride one ``psum`` each and the centered
     second-moment matrices one ``psum`` of a [d, d]-per-shard matmul —
-    O(d^2) bytes over ICI per slab regardless of lane count, never a
+    O(d^2) bytes between devices per slab regardless of lane count, never a
     per-lane gather. Two-pass centering for the same f32 reasons as
     ``collective_stats``' variance.
     """
+    mo = _collective_cv_moments_device(sample, summary, valid, mask, params,
+                                       motor, mesh, wind_ctrl)
+    return tuple(np.asarray(mo[k]) for k in
+                 ("n", "mz", "mt", "szz", "szt", "stt"))
+
+
+def _collective_cv_moments_device(sample, summary, valid, mask, params,
+                                  motor, mesh: Mesh, wind_ctrl=None) -> dict:
+    """``collective_cv_moments`` up to the readback: a dict of device
+    arrays (traceable, so its contractions can be inspected)."""
     from ..mc.cv import _controls, _targets
 
     shard = NamedSharding(mesh, P(BATCH_AXIS))
@@ -377,18 +387,18 @@ def collective_cv_moments(sample, summary, valid, mask, params, motor,
         mt = jax.lax.psum(jnp.sum(t, axis=0), BATCH_AXIS) / nf
         zc = (z - mz) * inc
         tc = (t - mt) * inc
+        hi = jax.lax.Precision.HIGHEST
         return {
             "n": n, "mz": mz, "mt": mt,
-            "szz": jax.lax.psum(zc.T @ zc, BATCH_AXIS),
-            "szt": jax.lax.psum(zc.T @ tc, BATCH_AXIS),
-            "stt": jax.lax.psum(tc.T @ tc, BATCH_AXIS),
+            "szz": jax.lax.psum(jnp.matmul(zc.T, zc, precision=hi),
+                                BATCH_AXIS),
+            "szt": jax.lax.psum(jnp.matmul(zc.T, tc, precision=hi),
+                                BATCH_AXIS),
+            "stt": jax.lax.psum(jnp.matmul(tc.T, tc, precision=hi),
+                                BATCH_AXIS),
         }
 
-    mo = _moments(sample, summary, valid, mask, wind_ctrl)
-    import numpy as np
-
-    return tuple(np.asarray(mo[k]) for k in
-                 ("n", "mz", "mt", "szz", "szt", "stt"))
+    return _moments(sample, summary, valid, mask, wind_ctrl)
 
 
 def collective_tail_extremes(values: jnp.ndarray, mask: jnp.ndarray | None,
@@ -398,7 +408,7 @@ def collective_tail_extremes(values: jnp.ndarray, mask: jnp.ndarray | None,
 
     Each shard reduces its lanes to its top-k'/bottom-k'
     (k' = min(k, shard size)) via ``lax.top_k``; one ``all_gather`` per
-    side moves [devices * k'] scalars over ICI instead of every lane.
+    side moves [devices * k'] scalars instead of every lane.
     The gathered candidates are SUPERSETS of the global top-k/bottom-k:
     any lane in the global top-k lies in its own shard's top-k' (either
     the shard holds >= k lanes and k' = k, or k' covers the whole shard).

@@ -12,7 +12,7 @@ Parity with `/root/reference/rocket_simulation/monte_carlo.py:562-707` and
 
 All figure-level structure (panel layout, labels, titles, bins, alphas)
 matches the reference so existing eyes can diff the artifacts. Matplotlib
-runs in Agg mode (no display on a TPU host).
+runs in Agg mode (no display needed) and is imported on first use.
 
 Plus one beyond-reference figure: ``plot_landing_footprint`` — the
 landing-dispersion map (impact scatter, mean point, 95/99% ellipses, CEP)
@@ -23,11 +23,7 @@ from __future__ import annotations
 
 import os
 
-import matplotlib
-
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt  # noqa: E402
-import numpy as np  # noqa: E402
+import numpy as np
 
 __all__ = [
     "plot_results",
@@ -44,9 +40,21 @@ __all__ = [
 ]
 
 
+def _pyplot():
+    """matplotlib's pyplot on the Agg backend, imported on first use so that
+    the simulator itself never needs matplotlib (the ``plots`` extra)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as pyplot
+
+    return pyplot
+
+
 def plot_results(analysis: dict, output_dir: str | None = None,
                  save_plots: bool = True) -> str | None:
     """2x2 distribution figure (`monte_carlo.py:562-633`)."""
+    plt = _pyplot()
     _, axes = plt.subplots(2, 2, figsize=(12, 10))
 
     summary = analysis["summary"]
@@ -110,6 +118,7 @@ def plot_landing_footprint(analysis: dict, output_dir: str | None = None,
     ``analysis["landing_footprint"]``. Single-call runs scatter the
     materialized per-lane landing positions; slabbed runs (``summary`` is
     None) render the ellipses/CEP from the streamed footprint alone."""
+    plt = _pyplot()
     from matplotlib.patches import Ellipse
 
     fp = analysis.get("landing_footprint")
@@ -183,6 +192,7 @@ def _cloud_trajectories(analyzer, analysis, max_trajectories):
 def plot_trajectory_cloud(analyzer, analysis: dict, output_dir: str,
                           max_trajectories: int = 50) -> str | None:
     """Altitude-vs-time + ground-track cloud (`monte_carlo.py:635-677`)."""
+    plt = _pyplot()
     ids, traj = _cloud_trajectories(analyzer, analysis, max_trajectories)
     if traj is None:
         return None
@@ -213,6 +223,7 @@ def plot_trajectory_cloud(analyzer, analysis: dict, output_dir: str,
 def plot_trajectory_cloud_3d(analyzer, analysis: dict, output_dir: str,
                              max_trajectories: int = 50) -> str | None:
     """3-D trajectory cloud (`monte_carlo.py:679-707`)."""
+    plt = _pyplot()
     ids, traj = _cloud_trajectories(analyzer, analysis, max_trajectories)
     if traj is None:
         return None
@@ -237,6 +248,7 @@ def plot_trajectory_cloud_3d(analyzer, analysis: dict, output_dir: str,
 def plot_single_simulation(results: dict, output_dir: str = "simulation_plots"
                            ) -> str:
     """3x2 single-flight panel (`example.py:75-137`)."""
+    plt = _pyplot()
     os.makedirs(output_dir, exist_ok=True)
     _, axes = plt.subplots(3, 2, figsize=(12, 14))
 
@@ -291,6 +303,7 @@ def plot_single_simulation(results: dict, output_dir: str = "simulation_plots"
 
 def plot_thrust_twr(results: dict, output_dir: str) -> str:
     """Thrust + TWR panels (`example.py:139-161`)."""
+    plt = _pyplot()
     from ..models.atmosphere import AtmosphereParams, gravity_at
 
     atm = AtmosphereParams.create()
@@ -330,6 +343,7 @@ def plot_exceedance(analysis: dict, metric: str = "apogee_altitude",
     empirical floor — with its bootstrap 95% band (refused on
     importance runs by ``tail_from_analysis``).
     """
+    plt = _pyplot()
     from ..mc.stats import exceedance_from_analysis
 
     stats = analysis.get(metric)
@@ -432,6 +446,7 @@ def plot_sobol_indices(indices: dict, output_dir: str | None = None,
     second-order interaction share (closed index minus the two
     first-order shares).
     """
+    plt = _pyplot()
     groups = list(indices["groups"])
     if metrics is None:
         metrics = [m for m in ("apogee_altitude", "range", "flight_time")
@@ -533,6 +548,7 @@ def plot_flight_envelope(envelope: dict, output_dir: str | None = None,
     trajectory-cloud overlays (`monte_carlo.py:562-707`) show a handful of
     individual lanes; this shows the population.
     """
+    plt = _pyplot()
     if channels is None:
         channels = list(envelope["channels"])
     channels = [c for c in channels if c in envelope["channels"]]
@@ -591,6 +607,7 @@ def plot_launch_window(sweep: dict, output_dir: str | None = None) -> str | None
     with GO cells (Wilson-95 upper bound within p_limit) marked. Purely
     descriptive sweeps (no limits) fall back to a range-p95 heatmap.
     """
+    plt = _pyplot()
     speeds = list(sweep["speeds"])
     dirs = list(sweep["directions_deg"])
     rows = sweep["candidates"]
@@ -673,6 +690,7 @@ def plot_convergence(analysis: dict, output_dir: str | None = None) -> str | Non
     valid lanes as i.i.d. — under ``sampler="sobol"``/``antithetic`` the
     true error is smaller and the band conservative.
     """
+    plt = _pyplot()
     hist = analysis.get("convergence")
     if not hist or len(hist) < 2:
         return None

@@ -1,7 +1,7 @@
 """Debug & observability helpers.
 
 The reference had none of this (SURVEY.md §5.1-5.2: bare prints, NumPy
-overflow warnings as its only 'race detection'). TPU-native equivalents:
+overflow warnings as its only 'race detection'). JAX equivalents:
 
   * ``debug_mode()``     — context manager enabling ``jax_debug_nans`` (the
                            vmap-world replacement for per-process exception

@@ -2,8 +2,15 @@
 
 Run once:  python scripts/gen_golden.py
 Writes JSON files under tests/golden/ that the pytest suite compares against.
+
+Needs a checkout of the upstream project (smcconoughey/erpl_monte_carlo_sim):
+its ``rocket_simulation/`` directory is put on ``sys.path`` below and its
+``sample_wind.csv`` is read. Without it this script cannot run; the tests use
+the goldens committed under tests/golden/ and skip the comparisons that need
+the upstream forecast file itself.
 """
 import json
+import os
 import sys
 import numpy as np
 
@@ -15,7 +22,8 @@ from environment import StandardAtmosphere, WindModel
 from simulator import FlightSimulator
 import utils as ref_utils
 
-OUT = "/root/repo/tests/golden"
+OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                   "tests", "golden")
 
 
 def unit_goldens():

@@ -36,6 +36,12 @@ Run (serial, ~19 s/flight on this host):
 
 Output: tests/golden/mc_<config>.jsonl — one JSON object per lane, written
 incrementally (resume-safe: lanes already present are skipped).
+
+Needs a checkout of the upstream project (smcconoughey/erpl_monte_carlo_sim):
+its ``rocket_simulation/`` directory is put on ``sys.path`` below and its
+``sample_wind.csv`` is read. Without it this script cannot run; the tests use
+the goldens committed under tests/golden/ and skip the comparisons that need
+the upstream forecast file itself.
 """
 import argparse
 import json
@@ -51,7 +57,8 @@ from motor import SolidMotor, LiquidMotor  # noqa: E402
 from environment import StandardAtmosphere, WindModel  # noqa: E402
 from monte_carlo import MonteCarloAnalyzer  # noqa: E402
 
-OUT_DIR = "/root/repo/tests/golden"
+OUT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests", "golden")
 
 IC = {
     "position": [0.0, 0.0, 10.0],

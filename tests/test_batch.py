@@ -157,8 +157,8 @@ def test_nan_lane_strict_parity_is_rejected_by_filter():
 
 
 def test_rk2_integrator_accuracy_and_stability():
-    """SimConfig(integrator="rk2") — the r4 fast-mode throughput lever
-    (407k vs 277k traj/s/chip measured on v5e): midpoint-method apogees on
+    """SimConfig(integrator="rk2") — the fast-mode lever that halves the
+    dynamics evaluations per step: midpoint-method apogees on
     a dispersed windowed batch must sit orders of magnitude below the
     dispersion sigma from RK4's, and a FULL nominal flight must stay
     stable through chute opening and land with headline metrics close to

@@ -10,8 +10,7 @@ opening shock, low-q coast ascent), per lane. These tests pin:
   * accuracy: apogee / landing / flight-time deltas orders of magnitude
     below the Monte Carlo dispersion sigmas,
   * the stiff-transient guards (chute opening shock integrates at fine dt),
-  * the step-count win that buys the measured ~3.6x single-flight latency
-    improvement on TPU (NOTES.md ledger),
+  * the step-count win (41k -> ~10k steps for the nominal flight),
   * that the stacked-vector equivalence path refuses the flag instead of
     silently ignoring it.
 """

@@ -286,7 +286,7 @@ def test_bin_histogram_counts_are_integer():
 
 
 def test_bin_histogram_mc_matches_single_channel():
-    """The multi-channel MXU-contraction histogram must count EXACTLY what
+    """The multi-channel one-hot-contraction histogram must count EXACTLY what
     the single-channel segment kernel counts (bf16 one-hot inputs with f32
     accumulation keep integer counts exact below 2^24), and its
     frame-stride subsampling must equal slicing by hand."""

@@ -2,7 +2,7 @@
 
 Golden values were produced by EXECUTING the reference simulator
 (scripts/gen_golden.py). BASELINE.json requires <0.1% on apogee/rail-exit
-stats; f64 matches far tighter, f32 (the TPU dtype) is also checked.
+stats; f64 matches far tighter, f32 (the device dtype) is also checked.
 """
 
 import jax
@@ -62,7 +62,7 @@ def test_solid_nominal_f64(summary_fn, golden_flight_solid):
 
 
 def test_liquid_nominal_f32(summary_fn, golden_flight_liquid):
-    """float32 — the TPU execution dtype — must hold the <0.1% target."""
+    """float32 — the device execution dtype — must hold the <0.1% target."""
     scene = jax.tree.map(
         lambda x: jnp.asarray(x, jnp.float32)
         if jnp.issubdtype(jnp.asarray(x).dtype, jnp.floating) else x,

@@ -1,10 +1,13 @@
 """Monte Carlo layer: sampling semantics, masked stats, filter, analyzer."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import erpl_monte_carlo_sim_tpu
 from erpl_monte_carlo_sim_tpu.engine import InitialConditions, SimConfig
 from erpl_monte_carlo_sim_tpu.mc import (
     MonteCarloAnalyzer,
@@ -127,12 +130,18 @@ def test_outlier_decode():
 
 @pytest.fixture(scope="module")
 def small_analysis():
-    """A 32-sample MC with the CSV forecast — the example.py configuration."""
+    """A 32-sample MC with the CSV forecast — the example.py configuration
+    in its --stabilized form: under parity aero nearly every wind-dispersed
+    lane diverges (SURVEY.md §6; the repo's sample forecast loses all 32),
+    which leaves nothing for the schema and re-simulation checks."""
     scene = nominal_scene(liquid_motor())
-    mc = MonteCarloAnalyzer(scene=scene, sim_config=SimConfig())
-    alts, wind = load_wind_profile_from_csv(
-        "/root/reference/rocket_simulation/sample_wind.csv"
+    mc = MonteCarloAnalyzer(
+        scene=scene, sim_config=SimConfig(energy_consistent_aero=True)
     )
+    alts, wind = load_wind_profile_from_csv(os.path.join(
+        os.path.dirname(erpl_monte_carlo_sim_tpu.__file__), "data",
+        "sample_wind.csv",
+    ))
     mc.base_altitude_profile = alts
     mc.base_wind_profile = wind
     ic = {
@@ -158,8 +167,7 @@ def test_analyzer_schema(small_analysis):
     assert len(a["apogee_altitude"]["percentiles"]) == 5
     # beyond-reference additive key: order-statistic percentile CIs
     # bracketing the reported percentiles when >= 2 valid lanes exist
-    # (this parity fixture disperses wind like the reference, so most
-    # lanes diverge — NaN bounds are the documented n<2 answer)
+    # (NaN bounds are the documented n<2 answer)
     ci = a["apogee_altitude"]["percentile_ci"]
     assert len(ci) == 5
     for p, (lo, hi) in zip(a["apogee_altitude"]["percentiles"], ci):

@@ -146,3 +146,19 @@ def test_safe_sqrt_semantics():
     assert float(g0) == 0.0
     g4 = jax.grad(safe_sqrt)(4.0)
     assert float(g4) == 0.25
+
+
+def test_bcast_where_shapes_and_bools():
+    from erpl_monte_carlo_sim_tpu.ops.math import bcast_where
+
+    mask = jnp.array([True, False])
+    a = jnp.ones((2, 3))
+    b = jnp.zeros((2, 3))
+    out = np.asarray(bcast_where(mask, a, b))
+    np.testing.assert_array_equal(out, [[1, 1, 1], [0, 0, 0]])
+    # bool operands take the logic-op path
+    ab = jnp.array([True, True])
+    bb = jnp.array([False, False])
+    np.testing.assert_array_equal(
+        np.asarray(bcast_where(mask, ab, bb)), [True, False]
+    )

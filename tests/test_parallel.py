@@ -1,6 +1,6 @@
 """Sharding layer on the virtual 8-device CPU mesh.
 
-The TPU-world replacement for "test multi-node without a real cluster"
+The replacement for "test multi-node without a real cluster"
 (SURVEY.md §4): conftest forces 8 host-platform devices; these tests verify
 that sharded execution matches single-device execution exactly and that the
 shard_map collective statistics match the vmapped masked stats.
@@ -261,8 +261,8 @@ def test_sharded_hot_loop_is_collective_free(mesh):
     all-reduces — the rail/main while-loop conditions. A regression that
     smuggles a tensor all-reduce, all-gather, reduce-scatter, or
     collective-permute into the loop body would pass value-level tests and
-    only show up as an ~8x perf loss on real ICI, which this 1-chip
-    environment cannot measure."""
+    only show up as a slowdown on real devices, which a CPU run cannot
+    measure."""
     import re
 
     from erpl_monte_carlo_sim_tpu.engine.batch import simulate_summary_batch

@@ -8,10 +8,13 @@ produces ~100% outliers (SURVEY.md §6). ``SimConfig.energy_consistent_aero``
 fixes the decomposition; OFF by default for exact parity.
 """
 
+import os
+
 import jax
 import numpy as np
 import pytest
 
+import erpl_monte_carlo_sim_tpu
 from erpl_monte_carlo_sim_tpu.engine import InitialConditions, SimConfig, simulate_summary
 from erpl_monte_carlo_sim_tpu.mc import MonteCarloAnalyzer
 from erpl_monte_carlo_sim_tpu.models import (
@@ -21,7 +24,10 @@ from erpl_monte_carlo_sim_tpu.models import (
     nominal_scene,
 )
 
-SAMPLE_CSV = "/root/reference/rocket_simulation/sample_wind.csv"
+# Any forecast does: the repo's own sample profile.
+SAMPLE_CSV = os.path.join(
+    os.path.dirname(erpl_monte_carlo_sim_tpu.__file__), "data", "sample_wind.csv"
+)
 
 
 @pytest.fixture(scope="module")

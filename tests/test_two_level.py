@@ -5,7 +5,7 @@ identity E[f_parity] = E[f_fast] + E[f_parity - f_fast].
 
 No reference counterpart (the reference has one fixed dt,
 `/root/reference/rocket_simulation/simulator.py:209`); this exists so the
-TPU-native tiered/fast flags stay honest at lane counts where the mean's
+batched engine's tiered/fast flags stay honest at lane counts where the mean's
 sampling stderr drops below the integration bias.
 """
 

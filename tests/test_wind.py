@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import erpl_monte_carlo_sim_tpu
 from erpl_monte_carlo_sim_tpu.models import (
     WindField,
     WindModelParams,
@@ -17,7 +18,13 @@ from erpl_monte_carlo_sim_tpu.models import (
     wind_at_altitude,
 )
 
+# The upstream project's forecast, where mounted: test_csv_loader pins its
+# values.
 SAMPLE_CSV = "/root/reference/rocket_simulation/sample_wind.csv"
+# Any forecast does for the statistics tests: the repo's own profile.
+REPO_CSV = os.path.join(
+    os.path.dirname(erpl_monte_carlo_sim_tpu.__file__), "data", "sample_wind.csv"
+)
 
 
 def test_zero_field_is_zero_everywhere():
@@ -91,7 +98,7 @@ def test_stochastic_profile_statistics():
 
 def test_perturb_preserves_forecast_mean():
     p = WindModelParams()
-    alts, wind = load_wind_profile_from_csv(SAMPLE_CSV)
+    alts, wind = load_wind_profile_from_csv(REPO_CSV)
     keys = jax.random.split(jax.random.PRNGKey(7), 1000)
     pert = jax.vmap(lambda k: perturb_wind_profile(p, k, alts, wind))(keys)
     pert = np.asarray(pert)

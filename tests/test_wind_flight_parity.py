@@ -8,6 +8,8 @@ code path — CSV interp, crosswind weathercocking, rail-exit aero angles —
 against ground truth from running the reference.
 """
 
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -25,6 +27,10 @@ SAMPLE_CSV = "/root/reference/rocket_simulation/sample_wind.csv"
 
 @pytest.fixture(scope="module")
 def traj():
+    # The golden was flown on the upstream project's own forecast; the
+    # repo's data/sample_wind.csv is a different profile.
+    if not os.path.exists(SAMPLE_CSV):
+        pytest.skip("upstream sample_wind.csv absent")
     scene = nominal_scene(liquid_motor())
     alts, wind = load_wind_profile_from_csv(SAMPLE_CSV)
     scene_w = scene.replace(wind=WindField.from_arrays(alts, wind))
